@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Map trace op names (fusion.N, copy.N, reshape.N ...) in the SERVING
-config's optimized TPU HLO back to source metadata, and rank the largest
+config's optimized HLO back to source metadata, and rank the largest
 buffers. One-off perf-attribution companion to perf_trace.py.
 
     timeout 1800 python scripts/hlo_names.py fusion.99 while.60 ...
@@ -34,7 +34,9 @@ def main():
     ri = jnp.zeros((W, 2, FL), jnp.float32)
     txt = dec.decode_windows_ri.lower(ri).compile().as_text()
     print(f"HLO: {len(txt.splitlines())} lines", flush=True)
-    pathlib.Path("/tmp/serving_tpu.hlo").write_text(txt)
+    out = pathlib.Path(__file__).resolve().parents[1] / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    (out / "serving.hlo").write_text(txt)
 
     # definition lines for the requested names
     for nm in names:

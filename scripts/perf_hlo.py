@@ -30,7 +30,9 @@ def main():
     dec = DeviceDecoder()
     ri = jnp.zeros((W, 2, FL), jnp.float32)
     txt = dec.decode_windows_ri.lower(ri).compile().as_text()
-    out = pathlib.Path("/tmp/decode_hlo.txt")
+    out = pathlib.Path(__file__).resolve().parents[1] / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    out = out / "decode_hlo.txt"
     out.write_text(txt)
     print("wrote", out, len(txt), "bytes", flush=True)
     # print the definition line (root + a few lines of context) of each

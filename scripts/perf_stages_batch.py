@@ -3,9 +3,9 @@
 
 Each truncate_stage builds a program that stops after that stage and
 returns a scalar, so stage cost = t(stage_k) - t(stage_{k-1}). Run on
-the real TPU:
+the GPU:
 
-    nohup timeout 3600 python scripts/perf_stages_batch.py > /tmp/perfb.log 2>&1 &
+    timeout 3600 python scripts/perf_stages_batch.py
 """
 
 import pathlib
@@ -91,7 +91,7 @@ def main():
     # truncated ladder runs through _compact_cand_pre and the sub-
     # compaction applies from post_refine on.
     lanes = int(os.environ.get("UWSPR_REFINE_LANES", "0"))
-    # UWSPR_PROBE_DTYPE=bf16: probe einsums at the bench's MXU precision.
+    # UWSPR_PROBE_DTYPE=bf16: probe einsums at the serving precision.
     dtype = os.environ.get("UWSPR_PROBE_DTYPE", "f32")
     # UWSPR_FANO_LANES=<n>: cross-window Fano-lane compaction
     # (DemodConfig.fano_compact_lanes); only the full row (stage=None)
@@ -104,7 +104,7 @@ def main():
     # refine by the accepted-lane population — the per-stage attribution
     # of the SERVING operating point (judge r3 item 2).
     cand_lanes = int(os.environ.get("UWSPR_CAND_LANES", "0"))
-    # UWSPR_STFT=matmul_bf16: the DFT-as-MXU-matmul STFT (ops/stft.py)
+    # UWSPR_STFT=matmul_bf16: the DFT-as-bf16-matmul STFT (ops/stft.py)
     stft_impl = os.environ.get("UWSPR_STFT", "fft")
     # UWSPR_GRID_DTYPE=bf16: coarse sync-grid conv operands in bfloat16
     # (CoarseConfig.grid_dtype) — the wideband conv is the dominant
@@ -129,8 +129,8 @@ def main():
     prev = 0.0
     # UWSPR_ONLY_FULL=1: measure just the end-to-end row (A/B runs).
     # UWSPR_STAGES=a,b,... : run only the named stages ("full" = None) —
-    # lets a wrapper run one stage per process so a TPU-worker crash on
-    # one stage doesn't kill the ladder (stage deltas then come from the
+    # lets a wrapper run one stage per process so a crash on one stage
+    # doesn't kill the ladder (stage deltas then come from the
     # printed cumulative times).
     stages = ["post_stft", "post_peaks", "post_grid", "post_coarse",
               "post_phase_a", "post_head", "post_refine", "pre_fano",
@@ -140,7 +140,8 @@ def main():
     elif os.environ.get("UWSPR_STAGES"):
         stages = [None if s == "full" else s
                   for s in os.environ["UWSPR_STAGES"].split(",")]
-    from uwspr_tpu.utils.roofline import analyze, cost_of
+    from uwspr_tpu.utils.roofline import analyze, cost_of, peaks_for
+    peaks = peaks_for(jax.devices()[0].device_kind)
     prev_cost = (0.0, 0.0)
     for stage in stages:
         dec = DeviceDecoder(cfg, truncate_stage=stage)
@@ -154,13 +155,10 @@ def main():
         # per-stage roofline: delta FLOPs/bytes of the truncated programs
         # over the delta time = the stage's own utilization/attribution
         # (SURVEY §7.1.9)
-        try:
-            flops, nbytes = cost_of(dec.decode_windows_ri.lower(ri).compile())
-        except Exception:
-            flops = nbytes = 0.0
+        flops, nbytes = cost_of(dec.decode_windows_ri.lower(ri).compile())
         if flops and t > prev:
             r = analyze(flops - prev_cost[0], nbytes - prev_cost[1],
-                        t - prev)
+                        t - prev, peaks)
             print(f"{'':>14}" + r.line(), flush=True)
         prev_cost = (flops, nbytes) if flops else prev_cost
         prev = t

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Capture an XLA device trace of the batched decode and print top ops.
 
-    nohup timeout 1800 python scripts/perf_trace.py > /tmp/trace.log 2>&1 &
+    timeout 1800 python scripts/perf_trace.py
 
 Parses the TensorBoard trace-event dump directly (no tensorboard needed):
 aggregates device-lane events by op name and prints the heaviest.
@@ -32,7 +32,8 @@ from uwspr_tpu.pipeline.jit_decoder import DeviceDecoder
 from uwspr_tpu.protocol.modulate import synthesize_frame
 
 W = int(sys.argv[1]) if len(sys.argv) > 1 else 128
-TRACE_DIR = "/tmp/uwspr-trace"
+TRACE_DIR = str(pathlib.Path(__file__).resolve().parents[1]
+                / "chiprun_out" / "trace")
 
 
 def make_batch(seed=0):
@@ -113,7 +114,7 @@ def main():
             pname = names.get(e.get("pid"), "")
             lanes.setdefault(pname, 0)
             lanes[pname] += e.get("dur", 0)
-            if "TPU" not in pname and "device" not in pname.lower():
+            if "GPU" not in pname and "device" not in pname.lower():
                 continue
             name = e.get("name", "?")
             agg.setdefault(name, [0, 0])

@@ -2,7 +2,7 @@
 
 These mirror the *behavior* of the reference C++ (cited per function) as
 directly as possible, trading speed for obviousness, and are used to verify
-the TPU implementations.
+the device implementations.
 """
 
 import numpy as np

@@ -90,7 +90,7 @@ def test_serve_follow_c2_repeat(reference_examples):
 @pytest.mark.parametrize("extra,expect_engine", [
     # default --engine auto resolves to hybrid on the CPU grid (the
     # full-budget device Fano would straggle into XLA:CPU's 40 s
-    # collective-rendezvous abort; on TPU auto = device via Pallas)
+    # collective-rendezvous abort; on the GPU auto = device)
     ([], "hybrid"),
     # the all-device sharded engine, budget bounded for the CPU grid
     (["--engine", "device", "--maxcycles", "128", "--jiggles", "3"],

@@ -212,41 +212,6 @@ def test_stft_matmul_bf16_matches_fft():
     assert "VE3EMB FN25 30" in {s.message for s in dec.spots(dec(z))}
 
 
-def test_stft_pallas_matches_matmul():
-    """ops/stft_pallas.py (frames-in-VMEM fused kernel, interpret mode
-    on CPU): same bf16 numerics as stft_impl="matmul_bf16", vmappable,
-    and the device engine decodes through it. TPU status (documented in
-    the module): validated to W=64 batches; W=128 hits a v5e
-    worker-crash limit, so it stays experimental (the serving default
-    via with_serving_defaults is the non-Pallas matmul_bf16 DFT)."""
-    import jax
-    import jax.numpy as jnp
-
-    from uwspr_tpu.config import CoarseConfig, DemodConfig, PipelineConfig
-    from uwspr_tpu.io.channel import awgn
-    from uwspr_tpu.ops.stft import stft_power_core
-    from uwspr_tpu.ops.stft_pallas import stft_power_pallas
-    from uwspr_tpu.pipeline.jit_decoder import DeviceDecoder
-    from uwspr_tpu.protocol.modulate import synthesize_frame
-
-    rng = np.random.default_rng(18)
-    z = awgn(synthesize_frame("VE3EMB", "FN25", 30, start_sample=600,
-                              freq_offset=-1.0), -18.0, rng=rng)
-    zj = jnp.asarray(z)
-    ref = np.asarray(stft_power_core(zj, impl="matmul_bf16"))
-    got = np.asarray(stft_power_pallas(zj, interpret=True))
-    assert (np.abs(ref - got) / (np.abs(ref) + 1e-9)).max() < 1e-3
-    got2 = np.asarray(jax.vmap(
-        lambda x: stft_power_pallas(x, interpret=True))(
-            jnp.stack([zj, zj])))
-    assert np.allclose(got2[0], got)
-
-    dec = DeviceDecoder(PipelineConfig(
-        coarse=CoarseConfig(stft_impl="pallas"),
-        demod=DemodConfig(probe_dtype="bf16")))
-    assert "VE3EMB FN25 30" in {s.message for s in dec.spots(dec(z))}
-
-
 def test_column_windowed_coarse_matches_full():
     """The column-windowed device coarse path (r5): stft col_window,
     smoothed_snr_spectrum col0, and the relative-coordinate conv grid

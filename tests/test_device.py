@@ -1,7 +1,7 @@
 """Device-decoder (single-XLA-program) and mesh-sharding tests.
 
-These exercise the TPU serving path on the virtual CPU device grid; the
-real-chip run happens in bench.py.
+These exercise the GPU serving path on the virtual CPU device grid; the
+run on the card is chip_smoke.py (and tests/test_gpu.py).
 """
 
 import jax

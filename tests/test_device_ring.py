@@ -2,7 +2,7 @@
 
 The ring engine must find the same transmissions as the host-windowed
 engines on the same continuous stream, while ingesting only hop-sized
-blocks (the 13.3x h2d cut that makes host-fed TPU serving viable), and
+blocks (the 13.3x h2d cut for host-fed serving), and
 its checkpoint state must round-trip.
 """
 

@@ -3,7 +3,7 @@
 Two OS processes form a jax.distributed job (coordinator on localhost),
 each contributing 2 virtual CPU devices; the (channel, time) mesh spans
 both processes, so the ppermute halo exchange crosses the process
-boundary — the CI stand-in for a multi-host TPU pod slice.
+boundary — the CI stand-in for a multi-host GPU deployment.
 """
 
 import os

@@ -84,7 +84,7 @@ def test_with_serving_defaults():
     assert s.demod.probe_dtype == "bf16"
     assert s.demod.refine_max_lanes == 64
     assert s.demod.fano_compact_lanes == 64
-    assert s.demod.cand_compact_lanes == 64   # 2x batch (r4: 4x reverted, TPU-unvalidated shape)
+    assert s.demod.cand_compact_lanes == 64   # 2x batch
     # per-window serving: no cross-window compaction
     s1 = with_serving_defaults(base, 1)
     assert s1.demod.probe_dtype == "bf16"
@@ -98,8 +98,8 @@ def test_with_serving_defaults():
     assert s2.demod.refine_max_lanes == 512
     assert s2.demod.fano_compact_lanes == 64
     assert s2.demod.cand_compact_lanes == 64
-    # wideband static lane count (r5): compaction sized 16x batch,
-    # bounded at the TPU-validated 512-lane wideband shape
+    # wideband static lane count: compaction sized 16x batch, bounded
+    # at 512 lanes
     wb = PipelineConfig(coarse=CoarseConfig(halfbandwidth=187, maxfreqs=200))
     s3 = with_serving_defaults(wb, 32)
     assert s3.demod.probe_dtype == "bf16"

@@ -1,20 +1,23 @@
-"""ops/select_pallas.py — the Mosaic model-selection kernel (r5).
+"""Model selection on the device path: coarse.search.select_best (the XLA
+event-skip loop every backend runs; a dedicated selection kernel was
+removed, see ROADMAP Reach).
 
 Must be bit-identical to the literal sequential fold
-(coarse.search.select_best_scan) on every adversarial case the XLA
-paths are pinned on: in-group nonlinear accept chains, deep-chain
-group revisits, NaN rows/columns, the negative-best decrease quirk,
-and plain noise grids. Runs in interpret mode on CPU; the TPU path is
-exercised by the device engine when CoarseConfig.select_impl resolves
-to "pallas".
+(coarse.search.select_best_scan) on every adversarial case: in-group
+nonlinear accept chains, deep-chain group revisits, NaN rows/columns,
+the negative-best decrease quirk, and plain noise grids, alone and
+vmapped over windows as the batched device pipeline uses it.
 """
 
 import jax.numpy as jnp
 import numpy as np
 
 from uwspr_tpu.config import CoarseConfig
-from uwspr_tpu.coarse.search import build_drift_models, select_best_scan
-from uwspr_tpu.ops.select_pallas import select_best_pallas
+from uwspr_tpu.coarse.search import (
+    build_drift_models,
+    select_best,
+    select_best_scan,
+)
 
 
 def test_select_pallas_matches_scan_oracle():
@@ -47,8 +50,7 @@ def test_select_pallas_matches_scan_oracle():
     deep[0, 1, 3, 11] = 0.7
     cases.append(deep)
     for sync in cases:
-        b1, i1 = select_best_pallas(jnp.asarray(sync), is_nl,
-                                    threshold=10.0, interpret=True)
+        b1, i1 = select_best(jnp.asarray(sync), is_nl, threshold=10.0)
         b2, i2 = select_best_scan(jnp.asarray(sync), is_nl,
                                   threshold=10.0)
         np.testing.assert_array_equal(np.asarray(i1), np.asarray(i2))
@@ -64,8 +66,7 @@ def test_select_pallas_vmapped_batch():
     M = bank.offsets.shape[0]
     rng = np.random.default_rng(19)
     sync = rng.normal(size=(3, 5, 5, 26, M)).astype(np.float32) * 0.1
-    f = jax.vmap(lambda s: select_best_pallas(s, is_nl, threshold=10.0,
-                                              interpret=True))
+    f = jax.jit(jax.vmap(lambda s: select_best(s, is_nl, threshold=10.0)))
     b1, i1 = f(jnp.asarray(sync))
     for w in range(3):
         b2, i2 = select_best_scan(jnp.asarray(sync[w]), is_nl,

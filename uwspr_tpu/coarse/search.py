@@ -1,4 +1,4 @@
-"""Coarse candidate search (the reference's "FDR" block, re-designed for TPU).
+"""Coarse candidate search (the reference's "FDR" block, as dense array ops).
 
 Pipeline per 45000-sample window (behavioral spec: lib/FDR_impl.cc:214-456):
 
@@ -21,7 +21,7 @@ Pipeline per 45000-sample window (behavioral spec: lib/FDR_impl.cc:214-456):
      reduced to a per-symbol integer bin-offset row, combined with the
      per-symbol sync sign into a one-hot weight matrix W (models, 162*9);
    - all (lag k0, model, frequency) scores come from one einsum
-     'mkd,wkdf->wmf' that runs on the MXU.
+     'mkd,wkdf->wmf' (a GEMM on the device).
 
 5. Exact sequential selection. The reference's order-dependent update rule
    (linear models: strictly-greater; nonlinear: accepted when
@@ -199,7 +199,7 @@ def detect_peaks(smspec: np.ndarray, cfg: CoarseConfig
 
 
 # ---------------------------------------------------------------------------
-# stage 4: dense sync-score grid (MXU einsum)
+# stage 4: dense sync-score grid (GEMM / conv)
 # ---------------------------------------------------------------------------
 
 
@@ -230,11 +230,11 @@ def coarse_score_grid(ps: jnp.ndarray, if0: jnp.ndarray,
       A/B kernel planes with the per-model stencil: one
       conv_general_dilated with row dilation 2 (the half-symbol lag
       stride) per plane.  The einsum's im2col materializes
-      26x-duplicated ~1.8 GB row-gather copies per 128-window batch
-      (~0.7 ms/window on v5e); the conv reads A/B directly.  Its
-      accumulation order differs by ~1 ulp, which can resolve float-noise
-      ties differently — used by the batched device pipeline, whose TPU
-      numerics already diverge from the CPU oracle (bf16 matmuls).
+      26x-duplicated ~1.8 GB row-gather copies per 128-window batch; the
+      conv reads A/B directly.  Its accumulation order differs by ~1 ulp,
+      which can resolve float-noise ties differently — used by the batched
+      device pipeline, whose numerics already diverge from the CPU oracle
+      (bf16 matmuls).
 
     ``f_window=(lo, hi)`` (both impls) restricts scoring to absolute
     spectrum columns [lo, hi).  Candidates only ever gather columns within
@@ -255,6 +255,9 @@ def coarse_score_grid(ps: jnp.ndarray, if0: jnp.ndarray,
     A = (pad[:, f - 1] + pad[:, f + 3]) - (pad[:, f - 3] + pad[:, f + 1])
     B = pad[:, f - 3] + pad[:, f - 1] + pad[:, f + 1] + pad[:, f + 3]
     onehot = jax.nn.one_hot(offsets - _D_MIN, _N_SHIFTS, dtype=jnp.float32)
+    # f32 scores are compared against the loop oracle: keep the GPU's
+    # matmul units from rounding f32 operands to TF32
+    precision = jax.lax.Precision.HIGHEST if dtype == "f32" else None
     lo = 0
     if impl == "conv":
         if f_window is not None:
@@ -271,8 +274,8 @@ def coarse_score_grid(ps: jnp.ndarray, if0: jnp.ndarray,
                 )[:, None]                                 # (M, 1, 162, D)
         K_pw = onehot[:, None]
         if dtype == "bf16":
-            # bf16 conv operands with f32 accumulation (the MXU-native
-            # precision; kernels are one-hot +-1/0, exact in bf16 —
+            # bf16 conv operands with f32 accumulation (kernels are
+            # one-hot +-1/0, exact in bf16 —
             # only the A/B powersum planes round). The device path's
             # selection already tolerates bf16-class value noise
             # (probe_dtype ladder precedent); the host CoarseSearch
@@ -285,20 +288,18 @@ def coarse_score_grid(ps: jnp.ndarray, if0: jnp.ndarray,
         conv = functools.partial(
             jax.lax.conv_general_dilated, window_strides=(1, 1),
             padding="VALID", rhs_dilation=(2, 1), dimension_numbers=dn,
-            preferred_element_type=jnp.float32)
+            preferred_element_type=jnp.float32, precision=precision)
         # keep the conv's native (m, w, f) layout: transposing here
-        # materializes two full grids (2 x 214 MB at wideband W=32, ~30%
-        # of the coarse stage on v5e) — gather candidates in conv layout
-        # and transpose only the (C,5)-gathered result below
+        # materializes two full grids (2 x 214 MB at wideband W=32) —
+        # gather candidates in conv layout and transpose only the
+        # (C,5)-gathered result below
         ss = conv(Ax, K_ss)[0, :, :n_lags]                 # (m, w, f)
         pw = conv(Bx, K_pw)[0, :, :n_lags]
     else:
-        # im2col einsum: one (M, 162*13) x (162*13, lags*width) MXU GEMM
-        # per plane. With dtype="bf16" the shifted-copy build and GEMM
+        # im2col einsum: one (M, 162*13) x (162*13, lags*width) GEMM per
+        # plane. With dtype="bf16" the shifted-copy build and GEMM
         # operands are bfloat16 (f32 accumulation; the one-hot/sign
-        # weights are exact in bf16) — the wideband serving formulation:
-        # the dilated one-hot conv lowers to <10% MXU on v5e while this
-        # GEMM runs the same 7.1 GFLOP/window near MXU speed.
+        # weights are exact in bf16) — the wideband serving formulation.
         if f_window is not None:
             lo, hi = max(f_window[0], 0), min(f_window[1], size)
             A = A[:, lo:hi]
@@ -309,8 +310,7 @@ def coarse_score_grid(ps: jnp.ndarray, if0: jnp.ndarray,
             B = B.astype(jnp.bfloat16)
         # shifted copies: S[row, d, f] = X[row, f + d + _D_MIN] (zero
         # outside the f window — the documented edge rule, like conv).
-        # Built entirely from STATIC slices — TPU gathers are
-        # row-latency-bound and dominated this build (measured r5)
+        # Built entirely from static slices, not a gather.
         padA = jnp.pad(A, ((0, 0), (_N_SHIFTS, _N_SHIFTS)))
         padB = jnp.pad(B, ((0, 0), (_N_SHIFTS, _N_SHIFTS)))
         off0 = _D_MIN + _N_SHIFTS
@@ -334,9 +334,11 @@ def coarse_score_grid(ps: jnp.ndarray, if0: jnp.ndarray,
         W_ss = (onehot * sync_sign[None, :, None].astype(jnp.float32)
                 ).astype(wdt)
         ss = jnp.einsum("mkd,wkdf->wmf", W_ss, XA,
-                        preferred_element_type=jnp.float32)
+                        preferred_element_type=jnp.float32,
+                        precision=precision)
         pw = jnp.einsum("mkd,wkdf->wmf", onehot.astype(wdt), XB,
-                        preferred_element_type=jnp.float32)
+                        preferred_element_type=jnp.float32,
+                        precision=precision)
     # per-candidate frequency gather: ifr = if0 + (-2..2). The conv
     # branch carries (m, w, f), the einsum branch (w, m, f); both gather
     # the same elements and differ only in the final transpose — the

@@ -29,53 +29,31 @@ class CoarseConfig:
     stft_impl: str = "auto"       # device-engine STFT: "auto" (the
                                   # sentinel default: behaves as "fft"
                                   # unless with_serving_defaults
-                                  # upgrades it to the measured serving
-                                  # choice "matmul_bf16" — an EXPLICIT
-                                  # "fft" is never upgraded), "fft"
-                                  # (XLA FFT, f32-exact vs the oracle),
-                                  # "matmul_bf16" (DFT as bf16 MXU
-                                  # matmuls, ops/stft.py — the serving
-                                  # default), or "pallas" (fused
-                                  # frames-in-VMEM kernel,
-                                  # ops/stft_pallas.py — same bf16
-                                  # numerics; experimental). Host
-                                  # CoarseSearch always uses "fft".
+                                  # upgrades it to the serving choice
+                                  # "matmul_bf16" — an EXPLICIT "fft"
+                                  # is never upgraded), "fft" (XLA FFT,
+                                  # f32-exact vs the oracle), or
+                                  # "matmul_bf16" (DFT as bf16 matmuls
+                                  # with f32 accumulation, ops/stft.py).
+                                  # Host CoarseSearch always uses "fft".
     grid_dtype: str = "auto"      # device-engine coarse sync-grid
                                   # operands: "auto" (f32 for the
-                                  # narrowband conv — bf16 measured
-                                  # neutral there in r4; bf16 for the
+                                  # narrowband conv, bf16 for the
                                   # wideband einsum, where it halves
                                   # the dominant im2col bytes), "f32",
                                   # or "bf16" (f32 accumulation either
                                   # way; one-hot kernels exact in
-                                  # bf16; deep-SNR decode rates
-                                  # identical, SWEEP artifacts). An
-                                  # explicit value is always honored.
-                                  # Host CoarseSearch stays f32.
-    select_impl: str = "auto"     # device-engine model selection:
-                                  # "xla" (_select_best_grouped — the
-                                  # event-skip while_loop), "pallas"
-                                  # (ops/select_pallas.py — the whole
-                                  # sequential walk inside one Mosaic
-                                  # program, VMEM-resident; r5), or
-                                  # "auto" (pallas on TPU when the
-                                  # model bank is linear-first AND the
-                                  # per-window grid fits scoped VMEM —
-                                  # narrowband C<=~60 lanes; wideband
-                                  # C=200 stays xla). Bit-identical
-                                  # (oracle-tested); host CoarseSearch
-                                  # always uses the XLA path.
+                                  # bf16). An explicit value is always
+                                  # honored. Host CoarseSearch stays f32.
     grid_impl: str = "auto"       # device-engine sync-grid contraction:
                                   # "conv" (conv_general_dilated over
                                   # the A/B planes), "einsum" (im2col
-                                  # MXU GEMM), or "auto" — conv for
+                                  # GEMM), or "auto" — conv for
                                   # narrowband, einsum for wideband
-                                  # (hpbm > 32), where the dilated
-                                  # one-hot conv lowers to <10% MXU on
-                                  # v5e while the GEMM runs the same
-                                  # FLOPs near MXU speed (r5 measured).
-                                  # Host CoarseSearch always uses the
-                                  # f32 einsum oracle path.
+                                  # (hpbm > 32). The threshold has not
+                                  # been re-derived on the GPU (ROADMAP
+                                  # 1.4). Host CoarseSearch always uses
+                                  # the f32 einsum oracle path.
 
     @property
     def fft_size(self) -> int:          # "size" = 2*spb
@@ -129,8 +107,8 @@ class DemodConfig:
                                   # gated, so a cross-window gather
                                   # (like refine_max_lanes) shrinks the
                                   # batch ~100x with identical results.
-                                  # r5: gated lanes beyond the cap are
-                                  # NO LONGER dropped — a bounded
+                                  # Gated lanes beyond the cap are
+                                  # not dropped — a bounded
                                   # while_loop decodes further chunks
                                   # until every gated lane ran
                                   # (jit_decoder._compact_fano), so
@@ -143,8 +121,8 @@ class DemodConfig:
                                   # candidate lanes across the window batch
                                   # to this many total lanes before the
                                   # phase-A/B refine (0 = off). The refine
-                                  # passes are ~linear in static lanes
-                                  # (~23 us/lane on v5e), and the wideband
+                                  # passes are ~linear in static lanes,
+                                  # and the wideband
                                   # default carries maxfreqs=200 slots per
                                   # window of which only the accepted few
                                   # are real — this prices refine by the
@@ -159,11 +137,10 @@ class DemodConfig:
                                   # Fano (fec/osd.py): 0 = off (reference
                                   # behavior), 2..6 = flip-search order.
                                   # Recommended host/hybrid depth: 5
-                                  # (r5 calibrated, ~2.5 s/failed lane:
-                                  # -29: 92->100%, -30: 44->68%, -31:
-                                  # 4->16%, ZERO false valids at every
-                                  # SNR under the r5 margin floors —
-                                  # SWEEP_OSD_r05.json, OSD_CALIB_o5).
+                                  # (calibrated decode rates: -29:
+                                  # 92->100%, -30: 44->68%, -31: 4->16%,
+                                  # zero false valids at every SNR under
+                                  # the margin floors — OSD_CALIB_o5).
                                   # Acceptance is gated by cross-jiggle
                                   # payload agreement OR the list-decoding
                                   # margin (osd_min_margin), calibrated so
@@ -229,32 +206,26 @@ class DemodConfig:
                                   # (impl.cc:443); dropped overflow lanes
                                   # surface in fano_overflow.
     fano_impl: str = "auto"       # on-device Fano implementation:
-                                  # "pallas" — the VMEM-resident Mosaic
-                                  # kernel (fec/fano_pallas.py): the whole
-                                  # sequential search runs inside one
-                                  # kernel at ~0.3 us/step per 128-lane
-                                  # block, so even a full-budget deep-SNR
-                                  # timeout batch is bounded at well under
-                                  # a second (measured 0.42 s for 128
-                                  # all-timeout lanes at maxcycles=10000
-                                  # on v5e). "while" — the XLA
-                                  # lax.while_loop formulation (portable;
-                                  # ~ms per unrolled iteration of HBM
-                                  # round trips, so full-budget lanes
-                                  # degrade to minutes — only safe with
-                                  # small maxcycles). "auto" = pallas on
-                                  # TPU, while elsewhere. Bit-exact either
-                                  # way (tests/test_fano_pallas.py).
-    probe_dtype: str = "f32"      # device-decoder probe einsums: "f32", or
-                                  # "bf16" (4 real bf16 matmuls, f32
-                                  # accumulation — the MXU-native
-                                  # precision; ~0.4% relative correlation
-                                  # error). At the compacted W=128
-                                  # operating point bf16 measured 33.8M ->
-                                  # 37.0M samples/s on v5e and is the
-                                  # bench/serving default (bench.py); f32
-                                  # remains the config default for
-                                  # bit-parity with the host oracles.
+                                  # "cuda" — the CUDA kernel called
+                                  # through the FFI (fec/fano_cuda.py):
+                                  # the whole sequential search runs in
+                                  # one kernel launch, one lane per GPU
+                                  # thread, each lane stopping on its
+                                  # own. "while" — the XLA
+                                  # lax.while_loop formulation (every
+                                  # backend; each unrolled iteration is
+                                  # a round of kernel launches, so
+                                  # full-budget lanes are slow). "auto"
+                                  # = what resolve_backend() picks for
+                                  # the platform. Bit-exact either way
+                                  # (tests/test_fano_lane.py).
+    probe_dtype: str = "f32"      # device-decoder probe einsums: "f32"
+                                  # (HIGHEST precision, the config
+                                  # default for bit-parity with the host
+                                  # oracles), or "bf16" (4 real bf16
+                                  # matmuls, f32 accumulation; ~0.4%
+                                  # relative correlation error) — the
+                                  # serving default (with_serving_defaults).
 
     @property
     def minrms(self) -> float:    # plausibility gate: 52 * symfac/64
@@ -288,50 +259,69 @@ class PipelineConfig:
     demod: DemodConfig = dataclasses.field(default_factory=DemodConfig)
     stream: StreamConfig = dataclasses.field(default_factory=StreamConfig)
     frontend: FrontendConfig = dataclasses.field(default_factory=FrontendConfig)
-    fano_backend: str = "native"   # "native" (C++ host) | "jax" (batched TPU)
+    fano_backend: str = "native"   # "native" (C++ host) | "jax" (device)
 
 
 DEFAULT_CONFIG = PipelineConfig()
 
 
+@dataclass(frozen=True)
+class Backend:
+    """What the program does on one JAX platform (see resolve_backend)."""
+
+    engine: str                   # what engine="auto" means: "device" | "host"
+    serving_defaults: bool        # serving engines apply with_serving_defaults
+    fano_impl: str                # what DemodConfig.fano_impl="auto" means
+
+
+# The one place that maps a JAX platform to engine and kernel choices.
+_BACKENDS = {
+    "gpu": Backend(engine="device", serving_defaults=True,
+                   fano_impl="cuda"),
+    "cpu": Backend(engine="host", serving_defaults=False,
+                   fano_impl="while"),
+}
+
+
+def resolve_backend(platform: str | None = None) -> Backend:
+    """Engine and kernel choices for ``platform`` (default: JAX's default
+    backend). Only "gpu" and "cpu" are supported; anything else raises
+    instead of silently running a fallback."""
+    if platform is None:
+        import jax
+        platform = jax.default_backend()
+    try:
+        return _BACKENDS[platform]
+    except KeyError:
+        raise ValueError(
+            f"unsupported JAX platform {platform!r}; uwspr runs on "
+            f"{' or '.join(sorted(_BACKENDS))}") from None
+
+
 def with_serving_defaults(config: PipelineConfig,
                           batch_windows: int) -> PipelineConfig:
-    """The measured TPU serving point, applied to tuning fields the user
-    left at their dataclass defaults (explicitly-set values are kept).
+    """The serving point, applied to tuning fields the user left at their
+    dataclass defaults (explicitly-set values are kept).
 
-    The serving engines (StreamDecoder, BatchedStreamDecoder, the CLI)
-    call this so a default-config `uwspr serve` runs the same
+    The serving engines (StreamDecoder, BatchedStreamDecoder,
+    DeviceRingDecoder, the CLI) call this on platforms whose
+    resolve_backend() says so, so a default-config `uwspr serve` runs the
     configuration bench.py measures: bf16 probe einsums + bf16 window
-    construction (spot parity with f32 verified; deep-SNR rates
-    unchanged, SWEEP_OSD_DEVICE_r03), and cross-window refine/Fano lane
-    compaction sized 2x the batch width — >=2x headroom over the
-    ~one-worth-lane-per-window steady state. The Fano cap is chunked,
-    never-drop (r5, jit_decoder._compact_fano): deep-SNR retry
-    populations beyond it decode in further while_loop chunks instead
-    of being shed, so untouched defaults keep hybrid-parity decode
-    rates at every SNR; residual refine/cand-compaction drops stay
-    observable via fano_overflow.
+    construction + the bf16 DFT STFT, and cross-window cand/refine/Fano
+    lane compaction. The Fano cap is chunked, never-drop
+    (jit_decoder._compact_fano): deep-SNR retry populations beyond it
+    decode in further while_loop chunks instead of being shed; residual
+    refine/cand-compaction drops stay observable via fano_overflow.
 
-    Wideband configs (static candidate-lane count > 32) get their own
-    compaction sizing (r5): 16x the batch width bounded at 512 lanes —
-    the TPU-validated wideband shape with >=60% headroom over the
-    measured 10-signal dense scene (BENCH_MATRIX row_wideband). Worth
-    lanes beyond the refine/cand caps shed weakest-coarse-SNR-first,
-    observably via the overflow counters; the Fano cap never drops.
-
-    The narrowband candidate cap is 2x the batch width — the TPU-proven
-    bench operating point (BENCH_r03/r04: 128/128 decoded at W=128,
-    cap 256). The coarse acceptance passes ~1 valid lane/window at the
-    serving scene and ~2.1/window on a dense 3-signal narrowband scene
-    (the +/-5 Hz passband physically fits only a few frames), so 2x
-    covers the steady state with headroom; the densest scenes shed
-    their weakest-coarse-SNR lanes observably via fano_overflow.
-    (4x the batch width was tried as the dense-scene default in r3 and
-    REVERTED: at W=128 the 512-lane narrowband probe programs crash the
-    v5e worker — repeatable kernel fault/OOM during the phase-A probe
-    build, /tmp ladder logs r4 — so the default stays at the validated
-    shape; dense deployments can raise cand_compact_lanes explicitly
-    after validating their batch width.)
+    Narrowband caps are 2x the batch width: the coarse acceptance passes
+    ~1 valid lane/window at the serving scene and ~2.1/window on a dense
+    3-signal narrowband scene (the +/-5 Hz passband physically fits only a
+    few frames). Wideband configs (static candidate-lane count > 32) get
+    16x the batch width bounded at 512 lanes, >=60% headroom over the
+    10-signal dense scene's ~10 worth lanes/window. Lanes beyond the
+    refine/cand caps shed weakest-coarse-SNR-first, observably via the
+    overflow counters. These caps were sized on the previous accelerator
+    and have not been re-swept on the GPU (ROADMAP 1.6).
     """
     d, c = config.demod, config.coarse
     upd = {}
@@ -339,10 +329,6 @@ def with_serving_defaults(config: PipelineConfig,
     if d.probe_dtype == "f32":
         upd["probe_dtype"] = "bf16"
     if c.stft_impl == "auto":
-        # DFT-as-bf16-matmul STFT: -14.3% serving compute (fetch-last
-        # interleaved A/B on v5e, 0.174 vs 0.203 ms/win), deep-SNR
-        # decode rates identical point-for-point; only the device
-        # engines read this (host CoarseSearch stays FFT/oracle-exact).
         # Only the "auto" sentinel upgrades — a user who explicitly set
         # "fft" asked for the f32-exact FFT and keeps it.
         upd_coarse["stft_impl"] = "matmul_bf16"
@@ -355,16 +341,9 @@ def with_serving_defaults(config: PipelineConfig,
         if d.cand_compact_lanes == 0:
             upd["cand_compact_lanes"] = 2 * batch_windows
     elif batch_windows > 1:
-        # Wideband serving defaults (r5): the full-passband config
-        # carries maxfreqs=200 static candidate slots per window
+        # wideband: maxfreqs=200 static candidate slots per window
         # (grc/uwspr_FDR.xml:31-36) of which only the accepted few are
-        # real, and refine is ~linear in static lanes — compaction is
-        # what makes wideband serve at all. Sized 16x the batch width
-        # (bounded 512, the TPU-validated wideband lane shape,
-        # BENCH_MATRIX row_wideband): >=60% headroom over the measured
-        # 10-signal scene's ~10 worth lanes/window. The Fano cap is
-        # never-drop (chunked); refine/cand caps shed weakest-coarse-SNR
-        # lanes first, observably via fano_overflow/refine_overflow.
+        # real; refine is ~linear in static lanes
         cap = min(16 * batch_windows, 512)
         if d.refine_max_lanes == 0:
             upd["refine_max_lanes"] = cap
@@ -382,5 +361,6 @@ def with_serving_defaults(config: PipelineConfig,
 
 __all__ = [
     "CoarseConfig", "DemodConfig", "StreamConfig", "FrontendConfig",
-    "PipelineConfig", "DEFAULT_CONFIG", "with_serving_defaults",
+    "PipelineConfig", "DEFAULT_CONFIG", "Backend", "resolve_backend",
+    "with_serving_defaults",
 ]

@@ -6,13 +6,13 @@ cos/sin phase recurrence and correlates 256 samples at a time
 (lib/sync_and_demodulate_impl.cc:126-256), then extracts soft symbols and
 retries Fano over up to 17 "jiggled" time shifts (:457-482).
 
-TPU re-design: each stage evaluates its whole probe grid densely —
+Array re-design: each stage evaluates its whole probe grid densely —
 
     corr[c, l, i, j] = sum_k z[lag+256*i+k] * exp(-2*pi*j*(f_probe + drift_i
                         + tone_j) * k * dt)
 
-factorized as (signal gather) x (per-candidate drift phasor, VPU) x
-(per-probe tone bank, one (162,256)@(256,F*4) MXU matmul per candidate).
+factorized as (signal gather) x (per-candidate drift phasor, elementwise)
+x (per-probe tone bank, one (162,256)@(256,F*4) matmul per candidate).
 The staged schedule (coarse lag +/-128/64 -> freq +/-0.5/0.25 -> linear
 drift +/-0.5 -> fine lag +/-32/16 -> fine freq +/-0.1/0.05 -> 17 jiggles)
 follows the reference exactly, with all candidates batched; grid argmaxes
@@ -85,23 +85,8 @@ def drift_offsets(cands: Candidates, drift1: np.ndarray, cf: float
     return np.where(is_nl, nl, lin).astype(np.float32)
 
 
-# Probe-power implementation: "xla" (default) or "pallas"
-# (ops/probe_pallas.py). Measured on TPU v5e at C=200 candidates x 17
-# lags: pallas 79 ms vs xla 74 ms steady — parity — while the XLA path
-# compiles in ~1 s vs ~170 s for the Mosaic kernel, so XLA is the default;
-# the kernel remains available (UWSPR_PROBE_IMPL=pallas or PROBE_IMPL)
-# and is numerically verified against the XLA path.
-PROBE_IMPL = None   # "pallas" | "xla" | None = env UWSPR_PROBE_IMPL or xla
-
-
-def _probe_use_pallas(probe_impl: str | None) -> bool:
-    import os
-    impl = probe_impl or PROBE_IMPL or os.environ.get("UWSPR_PROBE_IMPL")
-    return impl == "pallas"
-
-
 def _probe_powers_xla(z, lags, freqs, drift_sym, *, n_lags):
-    """Pure-XLA probe powers p (C, F, L, 162, 4) — the default path.
+    """Pure-XLA probe powers p (C, F, L, 162, 4).
 
     One contiguous slice per *candidate* (not per lag): all of a
     candidate's probe lags lie within a <=256-sample span by construction
@@ -112,10 +97,9 @@ def _probe_powers_xla(z, lags, freqs, drift_sym, *, n_lags):
     the aligned index j' = j + b multiplies each correlation by the unit
     phasor exp(-i*w*b) — irrelevant, since only |corr| is consumed.
 
-    This exists because per-(candidate, lag) dynamic slices dominate the
-    decode on TPU (57 of 72 ms for a 17-lag stage — the vmapped slice
-    lowers to a gather at ~5% of HBM peak); sharing one slice across lags
-    cuts the traffic 17x and turns the per-lag work into one einsum.
+    Sharing one slice across lags instead of one dynamic slice per
+    (candidate, lag) cuts the gathered bytes 17x and turns the per-lag
+    work into one einsum.
     """
     N = z.shape[0]
     C, F = freqs.shape
@@ -149,7 +133,8 @@ def _probe_powers_xla(z, lags, freqs, drift_sym, *, n_lags):
             ).astype(jnp.float32)                                 # (C, L, W)
     bankm = bank * mask[:, :, None, :]                            # (C,L,4F,W)
     corr = jnp.einsum("ciw,clmw->clim", zd, bankm,
-                      preferred_element_type=jnp.complex64)
+                      preferred_element_type=jnp.complex64,
+                      precision=jax.lax.Precision.HIGHEST)
     p = jnp.abs(corr).reshape(C, n_lags, 162, F, 4)
     return jnp.transpose(p, (0, 3, 1, 2, 4))                      # (C,F,L,162,4)
 
@@ -169,8 +154,7 @@ def _probe_powers_xla_gather(z, lags, freqs, drift_sym, *, n_lags):
     bank = jax.lax.complex(jnp.cos(wb), jnp.sin(wb)).reshape(C, F * 4, 256)
 
     # Each (candidate, lag) needs the contiguous 162*256-sample frame at
-    # z[lag : lag+41472].  A contiguous dynamic_slice is orders of magnitude
-    # cheaper on TPU than the equivalent elementwise gather.  Zero padding
+    # z[lag : lag+41472], taken as a contiguous dynamic_slice.  Zero padding
     # reproduces the reference's correlation guard 0 < n < N
     # (impl.cc:205): out-of-range samples contribute nothing, and z[0]
     # itself is excluded by zeroing it in the padded copy.
@@ -184,7 +168,8 @@ def _probe_powers_xla_gather(z, lags, freqs, drift_sym, *, n_lags):
             lambda s: jax.lax.dynamic_slice(zp, (s,), (frame_len,)))(start)
         zd = zz.reshape(C, 162, 256) * phasor_d
         corr = jnp.einsum("cik,cmk->cim", zd, bank,
-                          preferred_element_type=jnp.complex64)
+                          preferred_element_type=jnp.complex64,
+                          precision=jax.lax.Precision.HIGHEST)
         return jnp.abs(corr).reshape(C, 162, F, 4)            # power p
 
     ps = [one_lag(lags[:, l]) for l in range(n_lags)]
@@ -230,9 +215,7 @@ def make_shared_probe(z: jnp.ndarray, center: jnp.ndarray, *,
     absolute padded start). dtype "c64": Amat (C,162,W) complex64.
     dtype "bf16": Amat (C,2,162,W) bfloat16 real/imag planes — the whole
     construction chain (block gather, overlap rows, concat) runs at half
-    the HBM bytes, and downstream consumers skip their f32->bf16 casts;
-    this chain is ~60% of the serving program's device time (HLO trace,
-    v5e), all of it HBM-bound.
+    the HBM bytes, and downstream consumers skip their f32->bf16 casts.
 
     Amat[c, i, j'] = zp[base_c + 256*i + j']: overlapped 512-stride rows
     covering every probe lag within center +/- reach.  base is aligned to
@@ -249,17 +232,14 @@ def make_shared_probe(z: jnp.ndarray, center: jnp.ndarray, *,
     base = jnp.clip((start_min // block) * block, 0,
                     zp.shape[0] - (_FRAME + W))
     # base is block-aligned, so the per-candidate slice is a gather of
-    # whole blocks. A vmapped dynamic_slice here lowers to a serial
-    # while-loop over (window, candidate) pairs on TPU (~0.4 ms/window);
-    # the block-row gather below is one vectorized gather.
+    # whole blocks: one vectorized gather instead of a vmapped
+    # dynamic_slice per (window, candidate) pair.
     nblk = -(-zp.shape[0] // block)
     zpad = jnp.pad(zp, (0, nblk * block - zp.shape[0]))
     rows = base[:, None] // block + jnp.arange((_FRAME + W) // block)[None, :]
     if dtype == "bf16":
         # pair-plane rows: row r = [real block r | imag block r], so the
-        # gather keeps the f32 path's row COUNT (TPU gathers are
-        # per-row-latency-bound — doubling rows at half width measured
-        # 1.6x slower) at half the bytes per row
+        # gather keeps the f32 path's row count at half the bytes per row
         zblk = jnp.stack([jnp.real(zpad).reshape(nblk, block),
                           jnp.imag(zpad).reshape(nblk, block)],
                          axis=1).astype(jnp.bfloat16).reshape(nblk,
@@ -323,9 +303,9 @@ def phasor_ramp(theta: jnp.ndarray, W: int) -> jnp.ndarray:
     Split exponential: j = j1 + 64*j2 so exp(i*theta*j) =
     exp(i*theta*j1) * exp(i*theta*64*j2). Evaluating 64 + W/64
     transcendentals per theta instead of W matters because the probe
-    pipeline is VPU-transcendental-bound, not MXU-bound (the derotation
-    phasor alone is (C, 162, 1024) cos+sin pairs, ~4x per window): this
-    cuts the dominant refine-stage cost ~12x. The extra unit-phasor
+    pipeline is transcendental-bound, not matmul-bound (the derotation
+    phasor alone is (C, 162, 1024) cos+sin pairs, ~4x per window). The
+    extra unit-phasor
     product adds one f32 rounding vs direct cos/sin — irrelevant to the
     magnitude-only correlations downstream."""
     j1 = jnp.arange(64, dtype=jnp.float32)
@@ -446,12 +426,14 @@ def shared_probe_eval(zd: jnp.ndarray, base: jnp.ndarray, lags: jnp.ndarray,
             "RI-plane zd requires dtype='bf16'")
         bankm = bank * mask[:, :, None, :]                        # (C,L,4F,W)
         corr = jnp.einsum("ciw,clmw->clim", zd, bankm,
-                          preferred_element_type=jnp.complex64)
+                          preferred_element_type=jnp.complex64,
+                          precision=jax.lax.Precision.HIGHEST)
         p = jnp.abs(corr).reshape(C, n_lags, 162, F, 4)
     p = jnp.transpose(p, (0, 3, 1, 2, 4))                         # (C,F,L,162,4)
     sign = jnp.asarray(2.0 * SYNC_VECTOR.astype(np.float32) - 1.0)
     cmet = (p[..., 1] + p[..., 3]) - (p[..., 0] + p[..., 2])
-    ss = jnp.einsum("cfli,i->cfl", cmet, sign)
+    ss = jnp.einsum("cfli,i->cfl", cmet, sign,
+                    precision=jax.lax.Precision.HIGHEST)
     totp = p.sum(axis=(-2, -1))
     sync = (ss / totp).astype(jnp.float32)
     if want_symbols:
@@ -461,8 +443,7 @@ def shared_probe_eval(zd: jnp.ndarray, base: jnp.ndarray, lags: jnp.ndarray,
 
 def eval_probe_grid_core(z: jnp.ndarray, lags: jnp.ndarray, freqs: jnp.ndarray,
                          drift_sym: jnp.ndarray, *, n_lags: int,
-                         want_symbols: bool = False,
-                         probe_impl: str | None = None):
+                         want_symbols: bool = False):
     """Evaluate sync for every (candidate, freq, lag) probe (in-graph).
 
     z: (N,) complex64 traced; lags: (C, L) int32; freqs: (C, F) float32
@@ -470,24 +451,14 @@ def eval_probe_grid_core(z: jnp.ndarray, lags: jnp.ndarray, freqs: jnp.ndarray,
     drift in Hz.
 
     Returns sync (C, F, L) float32 and, if want_symbols, the per-symbol
-    tone powers p (C, F, L, 162, 4) float32.  The tone powers come from the
-    fused Pallas kernel on TPU (ops/probe_pallas.py) or the portable XLA
-    path elsewhere; both are numerically interchangeable (tested).
+    tone powers p (C, F, L, 162, 4) float32.
     """
-    if _probe_use_pallas(probe_impl):
-        from uwspr_tpu.ops.probe_pallas import (
-            pad_window_ri,
-            probe_powers_pallas,
-        )
-        ri = jnp.stack([jnp.real(z), jnp.imag(z)])
-        p = probe_powers_pallas(pad_window_ri(ri), lags, freqs, drift_sym,
-                                n_lags=n_lags)
-    else:
-        p = _probe_powers_xla(z, lags, freqs, drift_sym, n_lags=n_lags)
+    p = _probe_powers_xla(z, lags, freqs, drift_sym, n_lags=n_lags)
 
     sign = jnp.asarray(2.0 * SYNC_VECTOR.astype(np.float32) - 1.0)
     cmet = (p[..., 1] + p[..., 3]) - (p[..., 0] + p[..., 2])  # (C,F,L,162)
-    ss = jnp.einsum("cfli,i->cfl", cmet, sign)
+    ss = jnp.einsum("cfli,i->cfl", cmet, sign,
+                    precision=jax.lax.Precision.HIGHEST)
     totp = p.sum(axis=(-2, -1))
     sync = (ss / totp).astype(jnp.float32)
     if want_symbols:
@@ -504,8 +475,7 @@ def _eval_probe_grid_ri(ri, lags, freqs, drift_sym, *, n_lags,
 
 
 def complex_to_ri(z: np.ndarray) -> np.ndarray:
-    """(N,) complex -> (2, N) float32 — the host<->device sample ABI
-    (complex arrays cannot cross the boundary on all TPU runtimes)."""
+    """(N,) complex -> (2, N) float32 — the host<->device sample ABI."""
     z = np.asarray(z)
     return np.stack([z.real.astype(np.float32), z.imag.astype(np.float32)])
 

@@ -3,7 +3,9 @@ backends with identical (bit-exact) semantics:
 
 - ``native``  — multithreaded C++ host decoder (ctypes), the default for
   host-side pipelines; per-lane early exit, no lockstep cost.
-- ``jax``     — batched lockstep TPU decoder (lax.while_loop), keeps the
+- ``cuda``    — (device engine only, fec/fano_cuda.py) one GPU thread per
+  lane running the lane code of the native backend (native/fano_lane.h).
+- ``jax``     — batched lockstep device decoder (lax.while_loop), keeps the
   whole pipeline on-device.
 - ``ref``     — pure-Python oracle used by the test suite.
 """

@@ -1,4 +1,4 @@
-"""Batched Fano sequential decoder on TPU (JAX lax.while_loop).
+"""Batched Fano sequential decoder on the device (JAX lax.while_loop).
 
 The Fano algorithm is branchy and data-dependent — the opposite of what XLA
 likes — so it is reformulated as a *lockstep vectorized state machine*:
@@ -30,21 +30,11 @@ from uwspr_tpu.protocol.constants import FANO_METTAB, N_CODED_BITS, POLY1, POLY2
 
 _U32 = jnp.uint32
 
-# Primitive fano steps per while-loop iteration. The loop-control +
-# condition-sync overhead dominates the (masked, idempotent) body on TPU:
-# measured in the full window decode, unroll 4 -> 16 cut 54 ms/window;
-# with cross-window lane compaction (256-lane batches) the v5e bench
-# measured 16 -> 32 +3.3% and 32 -> 64 −8% (overshoot past the ~90-160
-# steps a typical lane needs), so 32 is the default.
-# UWSPR_FANO_UNROLL overrides (perf A/B harness only; read once at import,
-# parsed defensively — a malformed value falls back to the default instead
-# of crashing module import. Documented in docs/ARCHITECTURE.md §3.)
-import os as _os
-
-try:
-    WHILE_UNROLL = max(1, int(_os.environ.get("UWSPR_FANO_UNROLL", "32")))
-except ValueError:
-    WHILE_UNROLL = 32
+# Primitive fano steps per while-loop iteration: every step is masked and
+# idempotent for finished lanes, so testing the exit condition only every
+# WHILE_UNROLL steps cuts the serial loop-control cost (one predicate copy
+# to the host per iteration on the GPU) at no change in results.
+WHILE_UNROLL = 32
 
 
 def _branch_symbol(state: jnp.ndarray) -> jnp.ndarray:
@@ -59,29 +49,14 @@ def branch_metrics(symbols: jnp.ndarray, mettab: jnp.ndarray,
     """(L, 2*nbits) soft symbols -> (L, nbits, 4) int32 branch metrics,
     metrics[l, k, j] with j = (poly1_bit<<1)|poly2_bit.
 
-    Table lookups m[b][y] as a one-hot matmul: a 256-entry scalar gather
-    over L*nbits indices runs ~15x slower on TPU than the MXU contraction
-    (measured 84 ms vs a few ms per 26k-lane batch). Exactness: each
-    output row is a dot with exactly one nonzero (1.0) term, and the
-    table values are integers |v| <= 137 < 2^8 — exactly representable
-    in bfloat16 — so bf16 one-hot/table inputs with the MXU's f32
-    accumulation give a result bit-identical to the gather at half the
-    one-hot HBM footprint (and 2x the MXU rate) of an f32/HIGHEST
-    formulation.
+    Plain table gathers: exact integers, and on the GPU a gather of this
+    size is one small fused kernel.
     """
-    L = symbols.shape[0]
+    m = mettab.astype(jnp.int32)               # (2, 256)
     y0 = symbols[:, 0::2]                      # (L, nbits)
     y1 = symbols[:, 1::2]
-    m = mettab.astype(jnp.int32)               # (2, 256)
-    yy = jnp.stack([y0, y1])                   # (2, L, nbits)
-    oh = jax.nn.one_hot(yy.reshape(-1), 256, dtype=jnp.bfloat16)
-    mt = jax.lax.dot_general(
-        oh, m.astype(jnp.bfloat16).T,
-        (((1,), (0,)), ((), ())),
-        preferred_element_type=jnp.float32).astype(jnp.int32)
-    mt = mt.reshape(2, L, nbits, 2)
-    m0y0, m1y0 = mt[0, ..., 0], mt[0, ..., 1]
-    m0y1, m1y1 = mt[1, ..., 0], mt[1, ..., 1]
+    m0y0, m1y0 = m[0][y0], m[1][y0]
+    m0y1, m1y1 = m[0][y1], m[1][y1]
     return jnp.stack([
         m0y0 + m0y1,
         m0y0 + m1y1,

@@ -40,6 +40,7 @@ def fano_decode_batch_native(symbols: np.ndarray, mettab: np.ndarray,
 
     Returns (success (n,), data (n, nbits//8), metric, cycles, maxnp).
     """
+    assert nbits <= 81, nbits           # fano_lane.h kMaxBits
     symbols = np.ascontiguousarray(symbols, dtype=np.uint8)
     if symbols.ndim == 1:
         symbols = symbols[None]

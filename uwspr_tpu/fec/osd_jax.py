@@ -1,7 +1,7 @@
 """On-device ordered-statistics decoding (order <= 4) as one XLA program.
 
 The host OSD (fec/osd.py) gives the hybrid/host engines their deep-SNR
-fallback; this module is the same algorithm restructured for the TPU so
+fallback; this module is the same algorithm restructured for the device so
 the all-device and sharded-mesh engines can apply it without host round
 trips. The reference (michelbarbeau/gr-uwspr) has only the Fano decoder.
 
@@ -19,11 +19,13 @@ Structure (everything fixed-shape, vmappable over failed lanes):
   order 3 scores all C(50,3) triples at once via one (K,K,K) tensor —
   inclusion-exclusion over the XOR of three codeword deltas:
   score(p,q,r) = s0 + w_p+w_q+w_r - 2(M2_pq+M2_pr+M2_qr) + 4*T_pqr with
-  T = einsum(s, D, D, D) — 0.5 MB, trivial for the MXU, vs the host's
+  T = einsum(s, D, D, D) — 0.5 MB, trivial for the device, vs the host's
   sequential 19,600-candidate walk.
 
 GF(2) products use int32 matmuls (exact: inner dim <= 162) masked with
-& 1.
+& 1. The f32 score contractions run at HIGHEST precision so the GPU's
+matmul units do not round them to TF32 (the argmin tie-breaks must match
+the host's).
 
 Acceptance (calibrated in scripts/osd_calibrate.py / OSD_CALIB.json):
 the decoder also returns the LIST-DECODING MARGIN — (2nd-best candidate
@@ -42,6 +44,8 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 import numpy as np
+
+_HI = jax.lax.Precision.HIGHEST
 
 N, K = 162, 50
 
@@ -108,7 +112,7 @@ def osd2_decode_jax(soft: jnp.ndarray, G: np.ndarray, order: int = 2):
     score0 = jnp.sum(r * m0)
 
     Df = D.astype(jnp.float32)
-    w = s @ Df                                # (K,) order-1 score deltas
+    w = jnp.matmul(s, Df, precision=_HI)      # (K,) order-1 score deltas
     p1 = jnp.argmin(w)
     s_best = score0
     flips = jnp.zeros(K, jnp.int32)
@@ -123,7 +127,7 @@ def osd2_decode_jax(soft: jnp.ndarray, G: np.ndarray, order: int = 2):
     top2 = [score0[None], -jax.lax.top_k(-(score0 + w), 2)[0]]
 
     if order >= 2:
-        M2 = (Df * s[:, None]).T @ Df         # (K, K)
+        M2 = jnp.matmul((Df * s[:, None]).T, Df, precision=_HI)  # (K, K)
         pair = score0 + w[:, None] + w[None, :] - 2.0 * M2
         pair = jnp.where(jnp.triu(jnp.ones((K, K), bool), k=1),
                          pair, jnp.inf)
@@ -140,7 +144,7 @@ def osd2_decode_jax(soft: jnp.ndarray, G: np.ndarray, order: int = 2):
         # XOR of three columns by inclusion-exclusion (d are 0/1):
         # dp^dq^dr = dp+dq+dr - 2(dpdq+dpdr+dqdr) + 4 dpdqdr, so
         # score(p,q,r) = s0 + w_p+w_q+w_r - 2(M2_pq+M2_pr+M2_qr) + 4T_pqr
-        T = jnp.einsum("i,ip,iq,ir->pqr", s, Df, Df, Df)
+        T = jnp.einsum("i,ip,iq,ir->pqr", s, Df, Df, Df, precision=_HI)
         trip = (score0 + w[:, None, None] + w[None, :, None]
                 + w[None, None, :]
                 - 2.0 * (M2[:, :, None] + M2[:, None, :] + M2[None, :, :])
@@ -177,7 +181,8 @@ def osd2_decode_jax(soft: jnp.ndarray, G: np.ndarray, order: int = 2):
 
         def chunk(p, carry):
             s_best4, pv, qv, rv, tv, two = carry
-            q4 = jnp.einsum("i,iq,ir,it->qrt", s * E[:, p], E, E, E)
+            q4 = jnp.einsum("i,iq,ir,it->qrt", s * E[:, p], E, E, E,
+                            precision=_HI)
             sc = score0 + (T_s - q4) / 2.0
             ok = strict3 & (kk[:, None, None] > p)
             sc = jnp.where(ok, sc, jnp.inf)

@@ -4,7 +4,7 @@ Receiver (reference chain, examples/AudioSourceDecode.grc: band-pass at
 1500 +/- 10 Hz -> freq-translate -1500 Hz -> low-pass -> decimate x32):
 re-designed as one fused stage — complex mix to baseband, then a single
 polyphase anti-alias low-pass evaluated only at the decimated output points
-(a strided convolution that XLA maps onto the MXU). The passband of
+(one strided convolution). The passband of
 interest is only +/-halfbandwidth Hz and the first alias band after x32
 decimation starts at 375 - halfbandwidth Hz, so a short windowed-sinc
 (257 taps) achieves what the reference's ~4000-tap 10 Hz-transition chain
@@ -39,8 +39,7 @@ def _mix_and_decimate(audio: jnp.ndarray, lo: jnp.ndarray,
                       taps: jnp.ndarray, *, decim: int) -> jnp.ndarray:
     """audio (N,) f32, lo (2, N) f32 mixer cos/-sin (host-computed in
     float64: a float32 phase ramp loses ~0.1 rad by 1e6 samples and is
-    garbage past 2^24). Returns (2, M) float32 — complex64 cannot cross
-    the host<->device boundary on all TPU runtimes (CLAUDE.md ABI)."""
+    garbage past 2^24). Returns (2, M) float32 real/imag planes."""
     re = audio * lo[0]
     im = audio * lo[1]
     ntaps = taps.shape[0]
@@ -51,7 +50,8 @@ def _mix_and_decimate(audio: jnp.ndarray, lo: jnp.ndarray,
         k4 = taps[::-1].reshape(1, 1, -1)
         y = jax.lax.conv_general_dilated(
             x4, k4, window_strides=(decim,), padding=[(pad, pad)],
-            dimension_numbers=("NCH", "IOH", "NCH"))
+            dimension_numbers=("NCH", "IOH", "NCH"),
+            precision=jax.lax.Precision.HIGHEST)
         return y[0, 0]
 
     return jnp.stack([conv_stride(re), conv_stride(im)])

@@ -32,10 +32,9 @@ def stft_power_core(z: jnp.ndarray, *, n_ffts: int = 348, size: int = 512,
     impl="fft": XLA's batched FFT (f32-exact vs the NumPy oracle).
     impl="matmul_bf16": the 512-point DFT evaluated as four bf16 real
     matmuls against embedded cos/sin matrices with f32 accumulation —
-    the MXU-native formulation (one 512x512 DFT is 0.5 MFLOP more
-    FLOPs than the FFT but the MXU has ~50x the FLOP/s headroom of the
-    HBM-bound FFT path; measured A/B in scripts/perf_stages_batch.py).
-    bf16 mantissa rounding perturbs the power spectrum by ~1e-2
+    more FLOPs than the FFT, on the matmul units instead of a
+    memory-bound FFT (which of the two is faster on the GPU has not been
+    measured). bf16 mantissa rounding perturbs the power spectrum by ~1e-2
     relative — within the noise floor the 30th-percentile SNR
     normalization rides on; decode parity is pinned by the bench
     (128/128) and SWEEP artifacts, like the bf16 probe ladder.
@@ -45,7 +44,7 @@ def stft_power_core(z: jnp.ndarray, *, n_ffts: int = 348, size: int = 512,
     the conv-kernel/smoothing reach (~48 of 512 columns at the example
     config; see jit_decoder._coarse_stage). Each DFT output column is an
     independent dot product, so the matmul impl simply embeds the sliced
-    cos/sin matrices (identical per-column math at ~1/10 the MXU work
+    cos/sin matrices (identical per-column math at ~1/10 the matmul work
     and output bytes); the FFT impl computes the full transform and
     slices (the FFT cannot subset columns), still saving every
     downstream byte.
@@ -53,10 +52,10 @@ def stft_power_core(z: jnp.ndarray, *, n_ffts: int = 348, size: int = 512,
     w = jnp.asarray(half_sine_window(size))
     if size % hop == 0 and impl == "matmul_bf16":
         # hop divides size: frame i = rows i..i+size/hop-1 of the
-        # (fl/hop, hop) reshape — STATIC slices + one concat instead of
-        # an (n, size) advanced gather (TPU gathers are row-latency-
-        # bound and materialize the full frame matrix before the window
-        # multiply; the sliced form fuses into the DFT matmuls)
+        # (fl/hop, hop) reshape — static slices + one concat instead of
+        # an (n, size) advanced gather, which would materialize the full
+        # frame matrix before the window multiply; the sliced form fuses
+        # into the DFT matmuls
         k = size // hop                                    # 4
         n_rows = n_ffts + k - 1
         pad_to = n_rows * hop
@@ -107,11 +106,8 @@ def _stft_power_ri(ri: jnp.ndarray, *, n_ffts: int, size: int, hop: int):
 
 def stft_power(z: np.ndarray, *, n_ffts: int = 348, size: int = 512,
                hop: int = 128) -> jnp.ndarray:
-    """Host entry: complex samples -> power spectrum.
-
-    Complex arrays cannot cross the host<->device boundary on all TPU
-    runtimes, so the device ABI is a float32 (..., 2, fl) real/imag pair.
-    """
+    """Host entry: complex samples -> power spectrum. The device ABI is a
+    float32 (..., 2, fl) real/imag pair."""
     z = np.asarray(z)
     ri = np.stack([z.real.astype(np.float32), z.imag.astype(np.float32)],
                   axis=-2)

@@ -1,15 +1,16 @@
 """Multi-host runtime setup: jax.distributed + global mesh helpers.
 
 The reference has no distributed capability (SURVEY.md section 2.4); this
-framework scales a continuous multichannel receiver over a TPU pod slice:
+framework scales a continuous multichannel receiver over several GPU hosts:
 each host feeds its local shard of receive channels / time blocks, the
 mesh spans all hosts, and XLA inserts the collectives (the ppermute halo
-exchange of parallel.mesh rides ICI within a slice, DCN across hosts).
+exchange of parallel.mesh rides NVLink within a host, the network across
+hosts).
 
 Launch pattern (one process per host):
 
     from uwspr_tpu.parallel.distributed import initialize, global_mesh
-    initialize()                        # env-driven (TPU pods autoconfigure)
+    initialize("host0:1234", num_processes=2, process_id=0)
     mesh = global_mesh(n_channel=..., n_time=...)
     dec = ShardedDecoder(config, mesh)
     out, n = dec.decode(global_array)   # jax.make_array_from_process_local_data
@@ -27,9 +28,9 @@ from jax.sharding import Mesh
 def initialize(coordinator_address: str | None = None,
                num_processes: int | None = None,
                process_id: int | None = None) -> None:
-    """Initialize jax.distributed. On TPU pods all arguments are inferred
-    from the environment; pass them explicitly for CPU/GPU clusters.
-    Safe to call when already initialized (no-op)."""
+    """Initialize jax.distributed. On GPU and CPU clusters pass all three
+    arguments explicitly (nothing in a plain host tells JAX of its
+    cluster). Safe to call when already initialized (no-op)."""
     try:
         jax.distributed.initialize(
             coordinator_address=coordinator_address,

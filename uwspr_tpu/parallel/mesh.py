@@ -142,7 +142,7 @@ class ShardedDecoder:
             # program as DeviceDecoder.decode_windows_ri (vmapped pre-Fano
             # pipeline, refine-lane compaction if configured, one
             # cross-window two-phase Fano batch) — the probe einsums carry
-            # ch_l*n_win*C lanes, keeping the MXU busy.
+            # ch_l*n_win*C lanes.
             starts = jnp.arange(n_win) * hop
             idx = starts[:, None] + jnp.arange(fl)[None, :]
             wins_ri = (ext_ri[:, :, idx]                # (ch_l, 2, n_win, fl)

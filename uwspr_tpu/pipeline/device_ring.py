@@ -33,7 +33,11 @@ import functools
 
 import numpy as np
 
-from uwspr_tpu.config import PipelineConfig
+from uwspr_tpu.config import (
+    PipelineConfig,
+    resolve_backend,
+    with_serving_defaults,
+)
 
 
 class DeviceRingDecoder:
@@ -75,9 +79,8 @@ class DeviceRingDecoder:
         self.ingest_dtype = ingest_dtype
         dcfg = self.config
         if apply_serving_defaults is None:
-            apply_serving_defaults = jax.default_backend() == "tpu"
+            apply_serving_defaults = resolve_backend().serving_defaults
         if apply_serving_defaults:
-            from uwspr_tpu.config import with_serving_defaults
             dcfg = with_serving_defaults(dcfg, n_channels)
         self._device = DeviceDecoder(dcfg, fano_mode=fano_mode)
         self.fano_mode = fano_mode
@@ -105,9 +108,8 @@ class DeviceRingDecoder:
 
         # multi-hop step: ingest K hop blocks and decode after each in
         # ONE program (lax.scan over hops). Every dispatch/h2d/d2h pays
-        # a fixed per-RPC cost on remote runtimes; batching K hops
-        # amortizes it K-fold at K*9 s of added stream latency — the
-        # throughput/latency knob for link-constrained serving.
+        # a fixed cost; batching K hops amortizes it K-fold at K*9 s of
+        # added stream latency.
         def _multi_step(ring, new):        # new: (K, C, 2|1, hop)
             def body(r, nk):
                 blk, sc = nk

@@ -7,9 +7,8 @@
 // 45000-sample window every 9 s hop
 // (lib/sliding_window_stream_to_pdu_impl.cc:65,97-138).
 //
-// TPU-native equivalent: one preallocated planar ring buffer per channel
-// (float32 I/Q planes — the host<->device ABI; complex64 cannot cross the
-// boundary), lazy window extraction that copies ring -> batched (W, 2, fl)
+// Equivalent here: one preallocated planar ring buffer per channel
+// (float32 I/Q planes — the host<->device ABI), lazy window extraction that copies ring -> batched (W, 2, fl)
 // device-feed buffer with no intermediate window objects, and OpenMP
 // across channels for both ingest and extraction. The "scheduler" above
 // this (uwspr_tpu.pipeline.native_stream.BatchedStreamDecoder) forms

@@ -8,7 +8,7 @@ and advance by the 9 s hop (111 s overlap), guaranteeing every 111 s frame
 lies wholly inside some window.
 
 Multi-channel streams are first-class: feed (channels, n) arrays and every
-window batch is decoded together (the TPU replaces the reference's
+window batch is decoded together (the accelerator replaces the reference's
 block-thread pipeline parallelism with batch width, SURVEY.md section 2.4).
 """
 
@@ -21,7 +21,12 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
-from uwspr_tpu.config import PipelineConfig, StreamConfig
+from uwspr_tpu.config import (
+    PipelineConfig,
+    StreamConfig,
+    resolve_backend,
+    with_serving_defaults,
+)
 from uwspr_tpu.pipeline.decoder import DecodeResult, Spot, WindowDecoder
 from uwspr_tpu.protocol.messages import HashTable
 
@@ -70,8 +75,9 @@ class StreamStats:
 class StreamDecoder:
     """Continuous decoder over one or many channels.
 
-    engine: "host" (staged orchestration, CPU default), "device" (one XLA
-    program per window — the TPU serving path), or "auto".
+    engine: "host" (staged orchestration), "device" (one XLA program per
+    window), "hybrid" (device program through the gates, host Fano), or
+    "auto" (the platform's choice, config.resolve_backend).
     """
 
     def __init__(self, config: PipelineConfig | None = None,
@@ -80,19 +86,15 @@ class StreamDecoder:
         self.config = config or PipelineConfig()
         self.passes = passes
         if engine == "auto":
-            import jax
-            engine = "device" if jax.default_backend() == "tpu" else "host"
+            engine = resolve_backend().engine
         self.engine = engine
         self.hashtable = hashtable if hashtable is not None else HashTable()
         if engine in ("device", "hybrid"):
             from uwspr_tpu.pipeline.jit_decoder import DeviceDecoder
             dcfg = self.config
-            import jax as _jax
-            if _jax.default_backend() == "tpu":
-                # bench-measured TPU serving point for fields left at
-                # config defaults (bf16 probe path; per-window decode, so
-                # no cross-window compaction). Explicit settings win.
-                from uwspr_tpu.config import with_serving_defaults
+            if resolve_backend().serving_defaults:
+                # serving point for fields left at config defaults (per-
+                # window decode, so no cross-window compaction)
                 dcfg = with_serving_defaults(dcfg, 1)
             self._device = DeviceDecoder(
                 dcfg,
@@ -215,12 +217,8 @@ class BatchedStreamDecoder:
         self.windower = NativeWindower(n_channels, scfg.fl, hop,
                                        max(scfg.capacity_windows, need))
         dcfg = self.config
-        import jax as _jax
-        if _jax.default_backend() == "tpu":
-            # bench-measured TPU serving point (bf16 probe path +
-            # cross-window compaction sized 2x the batch width) for
-            # fields left at config defaults; explicit settings win
-            from uwspr_tpu.config import with_serving_defaults
+        if resolve_backend().serving_defaults:
+            # serving point for fields left at config defaults
             dcfg = with_serving_defaults(dcfg, batch_windows)
         self._device = DeviceDecoder(dcfg, fano_mode=fano_mode)
         self.stats = StreamStats()

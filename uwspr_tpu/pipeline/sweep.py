@@ -40,8 +40,8 @@ def snr_sweep(snrs_db, trials: int = 20, *, callsign: str = "VE3EMB",
 
     engine="host" runs the host-orchestrated WindowDecoder per trial;
     engine="device" batches each SNR point's trials into ONE on-device
-    program (DeviceDecoder.decode_windows_ri) — the TPU path gets the
-    same curve in seconds. Trial inputs are engine-independent (same
+    program (DeviceDecoder.decode_windows_ri) — the device path gets the
+    same curve in one batch per point. Trial inputs are engine-independent (same
     seed -> same windows)."""
     expect = f"{callsign} {grid} {power:2d}"
     rng = np.random.default_rng(seed)

@@ -1,6 +1,6 @@
 """WSPR message packing/unpacking and the type-3 callsign hash table.
 
-Host-side protocol logic (never on the TPU hot path). From-scratch Python
+Host-side protocol logic (never on the device hot path). From-scratch Python
 with behavior matched to the reference's helpers class:
 
 - unpack50 / unpackcall / unpackgrid / unpackpfx / unpack_message follow

@@ -1,10 +1,10 @@
 """Persistent XLA compilation cache setup.
 
 The reference caches FFTW plans in a wisdom file (lib/FDR_impl.cc:142-150);
-the TPU-native equivalent is JAX's persistent compilation cache. On some
-TPU runtimes the JAX_COMPILATION_CACHE_DIR environment variable is not
-honored (remote-compile backends read config, not env), so this helper sets
-the config keys explicitly. Call before the first jit execution.
+the equivalent here is JAX's persistent compilation cache. The directory is
+$JAX_COMPILATION_CACHE_DIR when set, else the fixed ``<repo>/.jax_cache``
+(a fixed path, because the path is part of the cache key). Call before the
+first jit execution.
 """
 
 from __future__ import annotations

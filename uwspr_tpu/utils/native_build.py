@@ -1,10 +1,11 @@
 """Compile-on-demand loader shared by the native (C++/ctypes) backends.
 
 One implementation of the build-and-cache dance — g++ with an
--march=native attempt, mtime-invalidated .so next to the source, one
-build per process — so a fix here (compiler discovery, stale-library
+-march=native attempt (or a caller's own build, e.g. nvcc), a .so next
+to the source invalidated when the source or a header beside it is newer,
+one build per process — so a fix here (compiler discovery, stale-library
 races, clearer errors) reaches every backend (fec/native,
-pipeline/native).
+pipeline/native, the GPU Fano kernel).
 """
 
 from __future__ import annotations
@@ -30,12 +31,13 @@ def _build(src: pathlib.Path, lib: pathlib.Path) -> None:
 
 
 def load_native(src: str | pathlib.Path, lib: str | pathlib.Path,
-                configure) -> ctypes.CDLL:
+                configure, build=_build) -> ctypes.CDLL:
     """Build (if stale) and dlopen a single-source C++ backend.
 
     ``configure(lib)`` sets argtypes/restypes on first load; the loaded
-    handle is cached per path. Raises OSError/subprocess errors the
-    caller is expected to catch for graceful fallback.
+    handle is cached per path. ``build(src, lib)`` compiles (default:
+    g++). Raises OSError/subprocess errors the caller is expected to catch
+    for graceful fallback.
     """
     src = pathlib.Path(src)
     lib = pathlib.Path(lib)
@@ -43,8 +45,10 @@ def load_native(src: str | pathlib.Path, lib: str | pathlib.Path,
     with _lock:
         if key in _loaded:
             return _loaded[key]
-        if not lib.exists() or lib.stat().st_mtime < src.stat().st_mtime:
-            _build(src, lib)
+        newest = max(p.stat().st_mtime
+                     for p in [src, *src.parent.glob("*.h")])
+        if not lib.exists() or lib.stat().st_mtime < newest:
+            build(src, lib)
         handle = ctypes.CDLL(key)
         configure(handle)
         _loaded[key] = handle

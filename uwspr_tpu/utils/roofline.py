@@ -1,77 +1,96 @@
-"""Roofline/MFU accounting for compiled decode programs (SURVEY §7.1.9).
+"""Roofline accounting for compiled decode programs (SURVEY §7.1.9).
 
-XLA's own HLO cost analysis supplies per-program FLOPs and HBM bytes
-(``compiled.cost_analysis()``); dividing by a measured wall time and the
-chip's peaks turns a stage time into an attribution — MXU-bound,
-HBM-bound, or dispatch/latency-bound — so perf work aims at the actual
-limiter. bench.py prints the whole-program line every run;
-scripts/perf_stages_batch.py emits the per-stage breakdown.
+XLA's own HLO cost analysis supplies per-program FLOPs and device-memory
+bytes (``compiled.cost_analysis()``); dividing by a measured device time
+and the card's peaks turns a program time into an attribution —
+tensor-core-bound, HBM-bound, or dispatch/latency-bound — so perf work
+aims at the actual limiter. bench.py prints the whole-program line.
 
-Peaks are the public TPU v5e (v5 lite) numbers: 197 TFLOP/s bf16 MXU
-(half for f32), 819 GB/s HBM.
+Peaks live in one table keyed by JAX's ``device_kind``; a device that is
+not in the table is an error, not a default.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
 
-V5E_PEAK_BF16_FLOPS = 197e12
-V5E_PEAK_HBM_BYTES = 819e9
+
+@dataclass(frozen=True)
+class Peaks:
+    bf16_flops: float            # dense tensor-core bf16 FLOP/s
+    tf32_flops: float            # dense tensor-core TF32 FLOP/s
+    f32_flops: float             # non-tensor-core f32 FLOP/s
+    hbm_bytes: float             # device-memory bytes/s
+    source: str
+
+
+# NVIDIA H100 SXM data sheet, dense rates without sparsity, at the card's
+# full 700 W power limit (a card set lower cannot hold its top clock).
+_H100_SXM = Peaks(bf16_flops=989e12, tf32_flops=495e12, f32_flops=67e12,
+                  hbm_bytes=3.35e12,
+                  source="NVIDIA H100 SXM data sheet (dense, 700 W)")
+
+PEAKS = {
+    "NVIDIA H100 80GB HBM3": _H100_SXM,
+}
+
+
+def peaks_for(device_kind: str) -> Peaks:
+    """Peaks of a device by its JAX ``device_kind``; raises for a kind
+    the table does not know."""
+    try:
+        return PEAKS[device_kind]
+    except KeyError:
+        raise ValueError(
+            f"no roofline peaks for device kind {device_kind!r}; known: "
+            f"{sorted(PEAKS)}") from None
 
 
 @dataclass
 class Roofline:
     flops: float                 # program total (XLA cost analysis)
     bytes_accessed: float
-    seconds: float               # measured wall time per execution
+    seconds: float               # measured device time per execution
     flops_per_s: float
     bytes_per_s: float
-    mxu_util: float              # vs bf16 peak
+    tensor_util: float           # vs the bf16 tensor-core peak
     hbm_util: float
-    bound: str                   # "MXU" | "HBM" | "dispatch/latency"
+    bound: str                   # "tensor" | "HBM" | "dispatch/latency"
 
     def line(self) -> str:
         return (f"{self.flops / 1e9:.2f} GFLOP, "
                 f"{self.bytes_accessed / 1e6:.1f} MB @ {self.seconds * 1e3:.2f} ms"
                 f" -> {self.flops_per_s / 1e12:.2f} TFLOP/s "
-                f"({self.mxu_util * 100:.1f}% MXU), "
+                f"({self.tensor_util * 100:.1f}% of bf16 tensor peak), "
                 f"{self.bytes_per_s / 1e9:.1f} GB/s "
                 f"({self.hbm_util * 100:.1f}% HBM) [{self.bound}-bound]")
 
 
 def cost_of(compiled) -> tuple[float, float]:
-    """(flops, bytes) from a jax compiled object (0.0 when the backend
-    does not expose cost analysis, e.g. some remote runtimes)."""
-    try:
-        ca = compiled.cost_analysis()
-    except Exception:
-        return 0.0, 0.0
+    """(flops, bytes) from a jax compiled object's cost analysis."""
+    ca = compiled.cost_analysis()
     if isinstance(ca, list):
         ca = ca[0] if ca else {}
-    if not ca:
-        return 0.0, 0.0
     return float(ca.get("flops", 0.0)), float(ca.get("bytes accessed", 0.0))
 
 
 def analyze(flops: float, bytes_accessed: float, seconds: float,
-            *, peak_flops: float = V5E_PEAK_BF16_FLOPS,
-            peak_bytes: float = V5E_PEAK_HBM_BYTES) -> Roofline:
+            peaks: Peaks) -> Roofline:
     """Classify a measured interval. 'bound' is the larger utilization;
     if both are under 10% the interval is dominated by neither — small
     ops, kernel launches, or serialized scalar work (dispatch/latency)."""
     fps = flops / max(seconds, 1e-12)
     bps = bytes_accessed / max(seconds, 1e-12)
-    mxu = fps / peak_flops
-    hbm = bps / peak_bytes
-    if max(mxu, hbm) < 0.10:
+    tensor = fps / peaks.bf16_flops
+    hbm = bps / peaks.hbm_bytes
+    if max(tensor, hbm) < 0.10:
         bound = "dispatch/latency"
-    elif mxu >= hbm:
-        bound = "MXU"
+    elif tensor >= hbm:
+        bound = "tensor"
     else:
         bound = "HBM"
-    return Roofline(flops, bytes_accessed, seconds, fps, bps, mxu, hbm,
+    return Roofline(flops, bytes_accessed, seconds, fps, bps, tensor, hbm,
                     bound)
 
 
-__all__ = ["Roofline", "cost_of", "analyze",
-           "V5E_PEAK_BF16_FLOPS", "V5E_PEAK_HBM_BYTES"]
+__all__ = ["Peaks", "PEAKS", "peaks_for", "Roofline", "cost_of", "analyze"]
